@@ -1,0 +1,125 @@
+"""The port's CUDA kernels on the card, against their plain PyTorch twins.
+
+Marked ``cuda``: each test skips with a reason where there is no card (the
+decision is taken inside the fixture, never at import).  This file imports
+neither jax nor repro, so it also runs on a machine with only PyTorch::
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+Tolerances: the tiled kernel within 2e-5 of its twin (another summation
+order), the local kernel bitwise (same powf, no FMA contraction).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.core import aidw as A, knn as K, pipeline as P  # noqa: E402
+from repro_torch.core.session import InterpolationSession  # noqa: E402
+from repro_torch.data.pipeline import spatial_points, spatial_queries  # noqa: E402
+from repro_torch.kernels.aidw import ops  # noqa: E402
+from repro_torch.kernels.aidw.aidw_kernel import (  # noqa: E402
+    local_interpolate_kernel, local_interpolate_plain, reset_launches,
+    tiled_interpolate_kernel, tiled_interpolate_plain)
+
+pytestmark = pytest.mark.cuda
+TOL = 2e-5
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: torch.cuda.is_available() is False")
+    return torch.device("cuda")
+
+
+def _data(n, m, dev, seed=0):
+    rng = np.random.default_rng(seed)
+    f = lambda *s: torch.tensor(rng.random(s), dtype=torch.float32,  # noqa: E731
+                                device=dev)
+    return f(n, 2), f(m, 2), torch.sin(f(m) * 7), 0.5 + 3.5 * f(n)
+
+
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("n,m,tq,td", [(256, 512, 256, 512),
+                                       (700, 1300, 256, 512),
+                                       (64, 100, 8, 128), (1, 1, 8, 128),
+                                       (4096, 65536, 256, 512)])
+def test_tiled_kernel_matches_twin(cuda, n, m, tq, td, fused):
+    q, p, z, a = _data(n, m, cuda)
+    aux = a * 0.01 if fused else a
+    stats = ops.stats_tensor(m, 1.0, cuda)
+    args = ops.tiled_inputs(q, p, z, aux, tile_q=tq, tile_d=td)
+    reset_launches()
+    out, sw = tiled_interpolate_kernel(*args[:3], stats, *args[3:], tile_q=tq,
+                                       tile_d=td, fused=fused)
+    torch.cuda.synchronize()
+    assert tiled_interpolate_kernel.launches == 1
+    want, wsw = tiled_interpolate_plain(*args[:3], stats, *args[3:],
+                                        fused=fused)
+    torch.testing.assert_close(out, want, rtol=TOL, atol=TOL)
+    assert torch.equal(sw <= 0, wsw <= 0)
+
+
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("n,m,k", [(256, 512, 15), (300, 600, 7),
+                                   (33, 90, 15), (1, 64, 1)])
+def test_local_kernel_bitwise_twin(cuda, n, m, k, fused):
+    q, p, z, a = _data(n, m, cuda, seed=5)
+    d2, idx = K.brute_knn(p, q, k)
+    aux = K.mean_nn_distance(d2) if fused else a
+    stats = ops.stats_tensor(m, 1.0, cuda)
+    out, sw = local_interpolate_kernel(d2, idx, aux, stats, z, tile_q=64,
+                                       fused=fused)
+    want, wsw = local_interpolate_plain(d2, idx, aux, stats, z, fused=fused)
+    assert torch.equal(out, want) and torch.equal(sw, wsw)
+
+
+def test_sentinels_on_card(cuda):
+    q = torch.tensor([[1e18, 1e18], [0.5, 0.5]], device=cuda)
+    p = torch.rand(64, 2, device=cuda)
+    z = torch.ones(64, device=cuda)
+    out, zero = ops.tiled_interpolate(q, p, z, 4.0, tile_q=8, tile_d=128)
+    assert zero.tolist() == [True, False] and float(out[0]) == 0.0
+    d2 = torch.full((4, 8), float("inf"), device=cuda)
+    idx = torch.zeros(4, 8, dtype=torch.int32, device=cuda)
+    out, zero = ops.local_interpolate(d2, idx, z, 2.0)
+    assert zero.all() and (out == 0).all()
+
+
+def test_wrappers_validate_inputs(cuda):
+    x = torch.rand(256, device=cuda)
+    s = ops.stats_tensor(1.0, 1.0, cuda)
+    with pytest.raises(TypeError):
+        tiled_interpolate_kernel(x.double(), x, x, s, x, x, x)
+    with pytest.raises(ValueError, match="multiples"):
+        tiled_interpolate_kernel(x, x, x, s, x[:100], x[:100], x[:100])
+    with pytest.raises(ValueError, match="contiguous"):
+        t = torch.rand(512, device=cuda)[::2]
+        tiled_interpolate_kernel(t, t, t, s, x, x, x, tile_d=256)
+    with pytest.raises(ValueError, match="on cpu"):
+        tiled_interpolate_kernel(x, x.cpu(), x, s, x, x, x)
+    d2 = torch.rand(8, 3, device=cuda)
+    with pytest.raises(TypeError):
+        local_interpolate_kernel(d2, torch.zeros(8, 3, dtype=torch.int64,
+                                                 device=cuda), x[:8], s, x)
+
+
+@pytest.mark.parametrize("stage2,fused", [("naive", False), ("tiled", False),
+                                          ("tiled", True), ("local", False),
+                                          ("local", True)])
+def test_session_on_card_matches_cpu(cuda, stage2, fused):
+    pts = spatial_points(8192, seed=0)
+    qs = spatial_queries(3000, seed=1)
+    cfg = P.AidwConfig(stage2=stage2, fused=fused)
+    got = InterpolationSession(pts, cfg, device=cuda).query(qs)
+    want = InterpolationSession(pts, cfg, device="cpu").query(qs)
+    assert torch.equal(got.overflow_mask.cpu(), want.overflow_mask)
+    torch.testing.assert_close(got.r_obs.cpu(), want.r_obs, rtol=0, atol=1e-6)
+    torch.testing.assert_close(got.alpha.cpu(), want.alpha, rtol=0, atol=1e-6)
+    torch.testing.assert_close(got.values.cpu(), want.values, rtol=TOL,
+                               atol=TOL)
+    assert A.DEFAULT_ALPHAS[0] <= float(got.alpha.min())

@@ -1,0 +1,55 @@
+"""The trace reader of tools/trace_stage1.py on a synthetic profiler trace."""
+
+import importlib.util
+import json
+from pathlib import Path
+
+import pytest
+
+pytest.importorskip("torch")
+
+TOOL = Path(__file__).resolve().parent.parent / "tools" / "trace_stage1.py"
+
+
+def _tool():
+    spec = importlib.util.spec_from_file_location("trace_stage1", TOOL)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("spans,want", [
+    ([], 0.0),
+    ([(0, 2), (5, 6)], 3.0),
+    ([(0, 2), (1, 3), (5, 6)], 4.0),        # overlap counted once
+    ([(1, 3), (0, 10), (4, 5)], 10.0),      # nested spans
+])
+def test_busy_us_is_the_union_of_intervals(spans, want):
+    assert _tool().busy_us(spans) == want
+
+
+def test_read_trace_counts_kernels_idle_share_and_blocking_calls(tmp_path):
+    events = [
+        {"cat": "cpu_op", "name": "aten::add", "ts": 0, "dur": 100},
+        {"cat": "cuda_runtime", "name": "cudaLaunchKernel", "ts": 10, "dur": 5},
+        {"cat": "cuda_runtime", "name": "cudaLaunchKernel", "ts": 20, "dur": 5},
+        {"cat": "cuda_runtime", "name": "cudaStreamSynchronize", "ts": 30,
+         "dur": 20},
+        {"cat": "cuda_runtime", "name": "cudaMemcpyAsync", "ts": 28, "dur": 2},
+        {"cat": "kernel", "name": "gather", "ts": 20, "dur": 30},
+        {"cat": "kernel", "name": "topk", "ts": 60, "dur": 10},
+        {"cat": "kernel", "name": "gather", "ts": 180, "dur": 20},
+        {"ph": "M", "name": "process_name"},
+    ]
+    path = tmp_path / "trace.json"
+    path.write_text(json.dumps({"traceEvents": events}))
+    out = _tool().read_trace(path)
+    assert out["kernels"] == 3
+    assert out["device_busy_ms"] == pytest.approx(0.060)
+    assert out["traced_wall_ms"] == pytest.approx(0.200)
+    assert out["traced_idle_share"] == pytest.approx(0.7)
+    assert out["runtime_calls"] == {"cudaLaunchKernel": 2,
+                                    "cudaStreamSynchronize": 1,
+                                    "cudaMemcpyAsync": 1}
+    assert out["top_kernels"][0] == {"name": "gather", "count": 2,
+                                     "ms": pytest.approx(0.050)}
