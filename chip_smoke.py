@@ -6,9 +6,10 @@ Run from the repository root with no arguments::
 
     python3 chip_smoke.py
 
-It builds the Stage-2 CUDA kernels from ``src/repro_torch/kernels/aidw/csrc``
-with ``nvcc`` (``repro_torch.kernels.aidw.build``), then runs five phases at
-the paper's protocol (uniform points in the unit square, n queries):
+It builds the CUDA kernels from ``src/repro_torch/kernels/*/csrc`` with
+``nvcc`` (``repro_torch.kernels.build``, one compiler per source, started
+together), then runs seven phases at the paper's protocol (uniform points
+in the unit square, n queries):
 
 1. global  — ``InterpolationSession`` with ``stage2="tiled"``, fused and
    unfused, m = 262,144 points, batches of 262,144, 70,001 and 1,000
@@ -22,11 +23,23 @@ the paper's protocol (uniform points in the unit square, n queries):
 4. sentinels — a far query [1e18, 1e18] through every kernel variant gives
    0.0 and a raised mask bit, never NaN; 1e30-padded data weigh nothing;
 5. Stage 1 — ``grid_knn`` on the card equals the port's CPU ``grid_knn``
-   on 4,096 queries (overflow and n_candidates exactly, d2 within 1e-6).
+   on 4,096 queries (overflow and n_candidates exactly, d2 within 1e-6);
+6. original — ``aidw_original`` (brute-force kNN kernel + tiled Stage 2)
+   on phase 1's data; the kNN kernel bitwise against its twin, alone at
+   262,144² and 1,048,576², with the append ring and at the edges (k > m,
+   duplicates); r_obs within 1e-6 and values within 2e-5 of the improved
+   session on its certified queries; the paper's Table 3 on this card
+   (the original kNN stage beside the improved Stage 1);
+7. precompile — the CUDA-graph bucket ladder of a tiled session (m =
+   262,144) and of phase 2's local session (1 M): replays bitwise equal
+   to eager queries, earlier results unchanged by a later replay, a full
+   ``update()`` drops the graphs; replayed and eager walls in turns.
 
 Each kernel wrapper counts its launches; the counts are zeroed just before
 a phase drives the main path and read just after it, before any
-comparison launch.  Times come from CUDA events after a warm-up.
+comparison launch.  A graph replay moves no count: phase 7 prints the
+launches recorded at capture times the replays.  Times come from CUDA
+events after a warm-up.
 
 Output: one JSON line per phase, one ``{"kernels": [...]}`` line, the
 card's name and power limit as ``nvidia-smi`` prints them, and last
@@ -56,6 +69,14 @@ STAGE1_Q = 4_096
 FUSED_STAGE2_Q = 4_096     # phase 3's direct fused_stage2 call
 VAL_TOL = 2e-5             # tiled kernel vs twin: another summation order
 MAX_ULPS = 1               # local kernel vs twin (powf vs torch.pow)
+KNN_K = 15                 # the paper's k
+KNN_HEAD_1M = 1_024        # the 1 M-point kNN run is checked on this prefix
+RING_SLOTS, RING_LIVE = 256, 64
+R_TOL = 1e-6               # grid kNN vs brute force (tests/test_knn.py:28)
+ORIG_REPS = 3              # aidw_original runs (kNN-stage walls)
+TURNS = 5                  # replayed and eager queries, taken in turns
+GRAPH_BUCKETS = (1_024, 131_072, 262_144)
+FIELDS = ("values", "alpha", "r_obs", "overflow_mask", "zero_weight_mask")
 
 # Peak rates of one H100 SXM (NVIDIA data sheet, at a 700 W limit): 3.35
 # TB/s of HBM; at the 1.98 GHz boost clock, 132 SMs each issue 128 FP32
@@ -69,11 +90,20 @@ MUFU_PER_S = 132 * 16 * 1.98e9
 # factors folded in), FADD sum_w, FFMA sum_wz; and one lg2, one ex2
 TILED_FP32_PER_PAIR = 8
 TILED_MUFU_PER_PAIR = 2
+# kNN kernel, per (query, point) pair on the path without an insertion, at
+# the fewest instructions: 2 FADD dx/dy, 2 FMUL, FADD d2, FSETP, BRA and half
+# an LDS.128 (one load serves two points), each issued at the same 128 a
+# clock on each SM (4 schedulers x 32 lanes) as the FP32 ones; insertions
+# (~k ln(m/k) a query) add < 1%.  tools/sass_loop.py counts the built loop:
+# 11.5 a pair, the 7.5 plus convergence barriers (BSSY/BSYNC) around the
+# divergent insertion and loop overhead.
+KNN_INSTR_PER_PAIR = 7.5
 BATCH_REPS = 5             # timed session queries per batch
 PROFILE_REPS = 3           # profiled session queries per batch
 
 DEVICE = "cuda"
 SOURCE = "src/repro_torch/kernels/aidw/csrc/aidw_kernels.cu"
+KNN_SOURCE = "src/repro_torch/kernels/knn/csrc/knn_kernels.cu"
 
 
 def kw_alpha(cfg) -> dict:
@@ -138,6 +168,31 @@ def rep_ms(torch, fn, reps: int) -> list[float]:
     return out
 
 
+def turns_ms(torch, fns: dict, reps: int) -> dict:
+    """Milliseconds of each of ``reps`` calls of every function in ``fns``,
+    taken in turns (a, b, a, b, ...), each timed alone by CUDA events,
+    after one warm-up call each.  Returns name -> median, min, max."""
+    for fn in fns.values():
+        fn()
+    torch.cuda.synchronize()
+    ms = {name: [] for name in fns}
+    for _ in range(reps):
+        for name, fn in fns.items():
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            ms[name].append(start.elapsed_time(end))
+    return {name: {"ms": statistics.median(v), "ms_min": min(v),
+                   "ms_max": max(v), "reps": reps} for name, v in ms.items()}
+
+
+def results_equal(torch, a, b) -> bool:
+    return all(torch.equal(getattr(a, f), getattr(b, f)) for f in FIELDS)
+
+
 def run_batches(torch, sess, batches, surface) -> list[dict]:
     """Per batch: a warm-up, ``BATCH_REPS`` timed queries and
     ``PROFILE_REPS`` profiled ones; medians with the spread."""
@@ -173,22 +228,30 @@ def main() -> int:
     from repro_torch.core.session import InterpolationSession
     from repro_torch.data.pipeline import (spatial_points, spatial_queries,
                                            spatial_surface)
-    from repro_torch.kernels.aidw import build, ops, ref
+    from repro_torch import kernels
+    from repro_torch.kernels import build
+    from repro_torch.kernels.aidw import ops, ref
     from repro_torch.kernels.aidw.aidw_kernel import (
-        local_interpolate_kernel, local_interpolate_plain, reset_launches,
+        local_interpolate_kernel, local_interpolate_plain,
         tiled_interpolate_kernel, tiled_interpolate_plain)
+    from repro_torch.kernels.knn import ops as knn_ops, ref as knn_ref
+    from repro_torch.kernels.knn.knn_kernel import (knn_brute_kernel,
+                                                    knn_brute_plain)
 
     dev = torch.device(DEVICE)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
     t0 = time.perf_counter()
-    so = build.library_path()
-    build.library()
+    sos = build.build_all()
+    for name in build.LIBRARIES:
+        build.library(name)
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "library": so.name,
-          "ptxas": [ln.strip() for ln in so.with_suffix(".log").read_text()
-                    .splitlines() if "registers" in ln or "spill" in ln]})
+          "libraries": [so.name for so in sos],
+          "ptxas": {so.name: [ln.strip() for ln in so.with_suffix(".log")
+                              .read_text().splitlines()
+                              if "registers" in ln or "spill" in ln]
+                    for so in sos}})
 
     # -- phase 1: global (tiled) Stage 2 ----------------------------------
     pts1 = spatial_points(GLOBAL_M, seed=0)
@@ -198,7 +261,7 @@ def main() -> int:
     for fused in (True, False):
         cfg = P.AidwConfig(stage2="tiled", fused=fused)
         sess = InterpolationSession(pts1, cfg, device=dev)
-        reset_launches()
+        kernels.reset_launches()
         rows = run_batches(torch, sess, batches, spatial_surface)
         launches = tiled_interpolate_kernel.launches
         check(launches > 0, "tiled kernel not launched on the main path")
@@ -269,7 +332,7 @@ def main() -> int:
     q2 = spatial_queries(LOCAL_N, seed=1)
     cfg = P.AidwConfig(stage2="local", fused=True)
     sess = InterpolationSession(pts2, cfg, device=dev)
-    reset_launches()
+    kernels.reset_launches()
     rows = run_batches(torch, sess, [q2], spatial_surface)
     local_launches = local_interpolate_kernel.launches
     check(local_launches > 0, "local kernel not launched on the main path")
@@ -385,6 +448,161 @@ def main() -> int:
                                       - K.mean_nn_distance(c.d2))
                                      .abs().max())})
 
+    # -- phase 6: the original algorithm through the kNN kernel -----------
+    q1 = batches[0]
+    cfg_o = P.AidwConfig(stage2="tiled")
+    kernels.reset_launches()
+    origs = [P.aidw_original(pts1, q1, cfg_o, device=dev, timings=True)
+             for _ in range(ORIG_REPS)]
+    o_launches = kernels.launch_counts()
+    check(o_launches["knn_brute_kernel"] > 0,
+          "kNN kernel not launched on the original path")
+    check(o_launches["aidw_tiled_kernel"] > 0,
+          "tiled kernel not launched on the original path")
+    ores = origs[-1]
+    # the improved session over the same grid (query_domain: same area)
+    sess_t = InterpolationSession(pts1, P.AidwConfig(stage2="tiled",
+                                                     fused=True),
+                                  query_domain=q1, device=dev)
+    profs = [sess_t.query(q1, profile=True) for _ in range(PROFILE_REPS + 1)]
+    imp = profs[-1]
+    cert = ~imp.overflow_mask
+    r_err = float((ores.r_obs - imp.r_obs)[cert].abs().max())
+    a_err = float((ores.alpha - imp.alpha)[cert].abs().max())
+    v_err = float((ores.values - imp.values)[cert].abs().max())
+    check(r_err <= R_TOL, f"original r_obs {r_err} from the improved one")
+    check(a_err <= R_TOL, f"original alpha {a_err} from the improved one")
+    check(v_err <= VAL_TOL, f"original values {v_err} from the improved ones")
+
+    p1 = torch.as_tensor(pts1, device=dev)
+    qt1 = torch.as_tensor(q1, device=dev)
+    px, py = p1[:, 0].contiguous(), p1[:, 1].contiguous()
+    qx, qy = qt1[:, 0].contiguous(), qt1[:, 1].contiguous()
+    kkw = dict(k=KNN_K, tile_q=cfg_o.tile_q, tile_d=cfg_o.tile_d)
+    head = slice(0, STAGE1_Q)
+    head_ulps = max_ulps(torch, knn_brute_kernel(qx[head], qy[head], px, py,
+                                                 **kkw),
+                         knn_brute_plain(qx[head], qy[head], px, py, k=KNN_K))
+    check(head_ulps == 0, f"kNN kernel {head_ulps} ulps from its twin")
+    kern = lambda: knn_brute_kernel(qx, qy, px, py, **kkw)  # noqa: E731
+    out_k, knn_ms = cuda_ms(torch, kern, reps=5, warmup=1)
+    out_p, knn_plain_ms = cuda_ms(
+        torch, lambda: knn_brute_plain(qx, qy, px, py, k=KNN_K), reps=1,
+        warmup=0)
+    check(torch.equal(out_k, out_p), "kNN kernel differs from its twin")
+    knn_err = float((out_k - out_p).abs().max())
+    n, m = qx.shape[0], px.shape[0]
+    knn_terms = {"bytes": 1e3 * 4 * (2 * n + 2 * m + n * KNN_K)
+                 / HBM_BYTES_PER_S,
+                 "issue": 1e3 * KNN_INSTR_PER_PAIR * n * m
+                 / FP32_INSTR_PER_S}
+    knn_bound = max(knn_terms.values())
+    del out_k, out_p
+
+    p2 = torch.as_tensor(pts2, device=dev)
+    q2t = torch.as_tensor(q2, device=dev)
+    px2, py2 = p2[:, 0].contiguous(), p2[:, 1].contiguous()
+    qx2, qy2 = q2t[:, 0].contiguous(), q2t[:, 1].contiguous()
+    out_1m, ms_1m = cuda_ms(
+        torch, lambda: knn_brute_kernel(qx2, qy2, px2, py2, **kkw), reps=2,
+        warmup=1)
+    h1 = slice(0, KNN_HEAD_1M)
+    check(torch.equal(out_1m[h1], knn_brute_plain(qx2[h1], qy2[h1], px2, py2,
+                                                  k=KNN_K)),
+          "1 M-point kNN kernel differs from its twin")
+    del out_1m
+
+    ring = torch.full((RING_SLOTS, 2), knn_ops.PAD_COORD, device=dev)
+    live = torch.as_tensor(spatial_points(RING_LIVE, seed=7)[:, :2],
+                           device=dev)
+    ring[:RING_LIVE] = live
+    qh = qt1[head]
+    check(torch.equal(knn_ops.knn_d2_with_ring(p1[:, :2], ring, qh, **kkw),
+                      knn_ops.knn_d2(torch.cat([p1[:, :2], live]), qh,
+                                     **kkw)),
+          "knn_d2_with_ring differs from knn_d2 over the live points")
+    few = knn_ops.knn_d2(p1[:10, :2], qh, k=KNN_K)
+    check(bool(torch.isinf(few[:, 10:]).all())
+          and bool(torch.isfinite(few[:, :10]).all()), "k > m tail")
+    check(torch.equal(few, knn_ref.knn_d2_ref(p1[:10, :2], qh, k=KNN_K)),
+          "k > m differs from knn_d2_ref")
+    dup = torch.tensor([[0.5, 0.5]] * 20 + [[0.1, 0.1]] * 5, device=dev)
+    dq = torch.tensor([[0.5, 0.5]], device=dev)
+    check(torch.equal(knn_ops.knn_d2(dup, dq, k=21),
+                      knn_ref.knn_d2_ref(dup, dq, k=21)), "duplicates")
+    knn = {"launches": o_launches["knn_brute_kernel"], "max_abs_err": knn_err,
+           "ms": knn_ms, "plain_ms": knn_plain_ms, "bound_ms": knn_bound}
+    emit({"phase": "original", "n": n, "m": m, "k": KNN_K,
+          "launches": o_launches, "reps": ORIG_REPS,
+          "knn_stage_s": statistics.median(r.timings["knn"] for r in origs),
+          "knn_stage_s_all": [r.timings["knn"] for r in origs],
+          "interp_s": statistics.median(r.timings["interp"] for r in origs),
+          "improved_stage1_s": statistics.median(
+              p.timings["stage1"] for p in profs[1:]),
+          "improved_stage1_s_all": [p.timings["stage1"] for p in profs[1:]],
+          "certified": int(cert.sum()),
+          "r_obs_max_abs_err": r_err,
+          "r_obs_bitwise_share": float((ores.r_obs == imp.r_obs)[cert]
+                                       .double().mean()),
+          "alpha_max_abs_err": a_err, "values_max_abs_err": v_err,
+          "kernel_head_ulps": head_ulps, "kernel_ms": knn_ms,
+          "plain_ms": knn_plain_ms, "bound_ms": knn_bound,
+          "bound_terms_ms": knn_terms, "max_abs_err": knn_err,
+          "kernel_ms_1m": ms_1m, "kernel_1m_head": KNN_HEAD_1M,
+          "ring": [RING_SLOTS, RING_LIVE]})
+    del origs, ores, profs
+
+    # -- phase 7: the CUDA-graph bucket ladder ---------------------------
+    graph_rows = []
+    for label, gs, gbuckets, qs_eq, qs_all, used in (
+            ("tiled_fused_m262144", sess_t, GRAPH_BUCKETS, q1, batches,
+             ("aidw_tiled_kernel",)),
+            ("local_fused_m1048576", sess, (LOCAL_N,), q2, [q2],
+             ("aidw_local_kernel",))):
+        # capture empties the allocator's cache first: empty it on both
+        # sides, so the growth is what the graphs' pool holds
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        mem0 = torch.cuda.memory_reserved(dev)
+        t0 = time.perf_counter()
+        got = gs.precompile(buckets=gbuckets)
+        capture_s = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        mem1 = torch.cuda.memory_reserved(dev)
+        check(got == sorted(gbuckets) and gs.stats["aot_buckets"]
+              == len(gbuckets), f"{label}: precompile bookkeeping")
+        for qb in qs_all:
+            replay = gs.query(qb)
+            eager = gs.query(qb, profile=True)
+            check(results_equal(torch, replay, eager),
+                  f"{label}: replay differs from eager at n={len(qb)}")
+        small = qs_all[-1]
+        first = gs.query(small)
+        kept = first.values.clone()
+        gs.query(small[::-1].copy())
+        check(torch.equal(first.values, kept),
+              f"{label}: a replay overwrote an earlier result")
+        qeq = torch.as_tensor(qs_eq, device=dev)
+        walls = turns_ms(torch, {"replayed": lambda: gs.query(qeq),
+                                 "eager": lambda: P.execute(gs.plan, qeq)},
+                         TURNS)
+        check(all(gs.graph_launches().get(name, 0) > 0 for name in used),
+              f"{label}: replays launched no {used}")
+        hist = gs.registry.snapshot()["histograms"]["session/compile_s"]
+        graph_rows.append({
+            "session": label, "buckets": got, "capture_s": capture_s,
+            "compile_s_count": hist["count"],
+            "memory_reserved_growth_bytes": mem1 - mem0,
+            "n": len(qs_eq), **{f"{k}_{f}": v for k, w in walls.items()
+                                for f, v in w.items()},
+            "launches": gs.graph_launches()})
+    sess_t.update(pts1)
+    check(sess_t.stats["aot_buckets"] == 0 and sess_t.graph_launches() == {}
+          and sess_t.registry.snapshot()["gauges"]["compiled_buckets"] == 0,
+          "update() kept its graphs")
+    emit({"phase": "precompile", "sessions": graph_rows,
+          "update_drops_graphs": True})
+
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True).stdout
@@ -402,6 +620,11 @@ def main() -> int:
          "launches": local["launches"], "max_abs_err": local["max_abs_err"],
          "ms": local["ms"], "plain_ms": local["plain_ms"],
          "bound_ms": local["bound_ms"], "bound_by": "bytes"},
+        {**common, "name": "knn_brute_kernel", "source": KNN_SOURCE,
+         "replaces": "src/repro/kernels/knn/knn_kernel.py:75",
+         "launches": knn["launches"], "max_abs_err": knn["max_abs_err"],
+         "ms": knn["ms"], "plain_ms": knn["plain_ms"],
+         "bound_ms": knn["bound_ms"], "bound_by": "operations"},
     ], "gpu": smi, "torch": torch.__version__, "cuda": torch.version.cuda})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -7,8 +7,9 @@ Counterpart of the JAX package's ``core/pipeline.py`` for ONE device:
   ``'tiled'`` through the tiled CUDA kernel (``fused=True`` computes alpha
   inside it), ``'local'`` truncates Eq. (1) to the k Stage-1 neighbours
   (``fused=True`` through the local CUDA kernel).
-* :func:`aidw_original` — brute-force kNN + the same Stage 2 (the paper's
-  baseline); :func:`idw_standard` — constant-alpha IDW.
+* :func:`aidw_original` — brute-force kNN through the kNN CUDA kernel +
+  the same Stage 2 (the paper's baseline); :func:`idw_standard` —
+  constant-alpha IDW.
 
 Plan/execute: :func:`plan` does the host grid planning and the CSR binning
 once per dataset and keeps the arrays on the device; :func:`execute` runs
@@ -34,6 +35,7 @@ import torch
 
 from ..device import resolve_device, synchronize
 from ..kernels.aidw import ops as aidw_ops
+from ..kernels.knn import ops as knn_ops
 from . import aidw as A
 from . import grid as G
 from . import knn as K
@@ -294,11 +296,15 @@ def aidw_improved(points_xyz, queries_xy, cfg: AidwConfig = AidwConfig(), *,
 
 def aidw_original(points_xyz, queries_xy, cfg: AidwConfig = AidwConfig(), *,
                   device=None, timings: bool = False) -> AidwResult:
-    """The Mei et al. (2015) baseline: brute-force global kNN + same Stage 2."""
+    """The Mei et al. (2015) baseline: brute-force global kNN (the kNN
+    kernel, :func:`repro_torch.kernels.knn.ops.knn_d2`) + the same Stage 2.
+    ``timings["knn"]`` is the kNN stage's wall (the paper's Table 3)."""
     dev = resolve_device(device)
     pts, q = _on(points_xyz, dev), _on(queries_xy, dev)
     t0 = time.perf_counter()
-    d2, _ = K.brute_knn(pts[:, :2], q, cfg.k, cfg.knn_block)
+    # k clamps to m as the reference's brute_knn does: knn_d2 pads with inf
+    d2 = knn_ops.knn_d2(pts[:, :2], q, k=min(cfg.k, pts.shape[0]),
+                        tile_q=cfg.tile_q, tile_d=cfg.tile_d)
     r_obs = K.mean_nn_distance(d2)
     if timings:
         synchronize(dev)

@@ -27,7 +27,7 @@ import torch
 
 from repro_torch.core import aidw as A
 
-from . import build
+from .. import build
 
 DEFAULT_TILE_Q = 256   # queries (threads) per CTA
 DEFAULT_TILE_D = 512   # data points per shared-memory tile
@@ -132,7 +132,7 @@ def tiled_interpolate_kernel(qx, qy, aux, stats, px, py, pz, *,
         return out, sumw
     arr, rmin, rmax, cos_scale = _alpha_args(alphas, r_min, r_max)
     with torch.cuda.device(dev):
-        err = build.library().aidw_tiled(
+        err = build.library("aidw_kernels").aidw_tiled(
             qx.data_ptr(), qy.data_ptr(), aux.data_ptr(), stats.data_ptr(),
             px.data_ptr(), py.data_ptr(), pz.data_ptr(), out.data_ptr(),
             sumw.data_ptr(), n, m, tile_q, tile_d, int(fused),
@@ -191,7 +191,7 @@ def local_interpolate_kernel(d2, idx, aux, stats, pz, *,
         return out, sumw
     arr, rmin, rmax, cos_scale = _alpha_args(alphas, r_min, r_max)
     with torch.cuda.device(dev):
-        err = build.library().aidw_local(
+        err = build.library("aidw_kernels").aidw_local(
             d2.data_ptr(), idx.data_ptr(), aux.data_ptr(), stats.data_ptr(),
             pz.data_ptr(), out.data_ptr(), sumw.data_ptr(), n, k, tile_q,
             int(fused), ctypes.addressof(arr), rmin, rmax, cos_scale,

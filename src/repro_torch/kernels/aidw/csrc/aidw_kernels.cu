@@ -1,6 +1,6 @@
 // Hand-written Hopper (sm_90a) kernels for AIDW Stage 2.
 //
-// Built by repro_torch/kernels/aidw/build.py with
+// Built by repro_torch/kernels/build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC
 // into a shared library with a plain C interface, loaded with ctypes.  No

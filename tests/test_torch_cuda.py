@@ -7,7 +7,9 @@ neither jax nor repro, so it also runs on a machine with only PyTorch::
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Tolerances: the tiled kernel within 2e-5 of its twin (another summation
-order), the local kernel bitwise (same powf, no FMA contraction).
+order), the local and kNN kernels bitwise (the same f32 operations, no FMA
+contraction), CUDA-graph replays bitwise against eager queries (the same
+kernels on the same inputs).
 """
 
 from __future__ import annotations
@@ -24,6 +26,9 @@ from repro_torch.kernels.aidw import ops  # noqa: E402
 from repro_torch.kernels.aidw.aidw_kernel import (  # noqa: E402
     local_interpolate_kernel, local_interpolate_plain, reset_launches,
     tiled_interpolate_kernel, tiled_interpolate_plain)
+from repro_torch.kernels.knn import ops as knn_ops, ref as knn_ref  # noqa: E402
+from repro_torch.kernels.knn.knn_kernel import (  # noqa: E402
+    knn_brute_kernel, knn_brute_plain)
 
 pytestmark = pytest.mark.cuda
 TOL = 2e-5
@@ -123,3 +128,110 @@ def test_session_on_card_matches_cpu(cuda, stage2, fused):
     torch.testing.assert_close(got.values.cpu(), want.values, rtol=TOL,
                                atol=TOL)
     assert A.DEFAULT_ALPHAS[0] <= float(got.alpha.min())
+
+
+@pytest.mark.parametrize("k", [1, 15, 16, 17, 32, 33, 64])
+@pytest.mark.parametrize("n,m,tq,td", [(256, 512, 256, 512),
+                                       (700, 1300, 256, 512),
+                                       (33, 9, 64, 128), (1, 1, 8, 128),
+                                       (3000, 70_001, 128, 1024)])
+def test_knn_kernel_bitwise_twin(cuda, n, m, tq, td, k):
+    q, p, _, _ = _data(n, m, cuda, seed=k)
+    args = (q[:, 0].contiguous(), q[:, 1].contiguous(),
+            p[:, 0].contiguous(), p[:, 1].contiguous())
+    knn_brute_kernel.launches = 0
+    out = knn_brute_kernel(*args, k=k, tile_q=tq, tile_d=td)
+    torch.cuda.synchronize()
+    assert knn_brute_kernel.launches == 1
+    assert torch.equal(out, knn_brute_plain(*args, k=k))
+    assert bool(torch.isinf(out[:, m:]).all())
+
+
+def test_knn_kernel_edges(cuda):
+    """Duplicates stay separate entries; PAD_COORD points are never
+    selected; k above 64 raises with the limit named."""
+    p = torch.tensor([[0.5, 0.5]] * 20 + [[0.1, 0.1]] * 5, device=cuda)
+    q = torch.tensor([[0.5, 0.5]], device=cuda)
+    assert torch.equal(knn_ops.knn_d2(p, q, k=21),
+                       knn_ref.knn_d2_ref(p, q, k=21))
+    ring = torch.full((8, 2), knn_ops.PAD_COORD, device=cuda)
+    ring[:2] = p[:2]
+    assert torch.equal(knn_ops.knn_d2_with_ring(p, ring, q, k=21),
+                       knn_ops.knn_d2(torch.cat([p, p[:2]]), q, k=21))
+    x = torch.rand(64, device=cuda)
+    with pytest.raises(ValueError, match="64"):
+        knn_brute_kernel(x, x, x, x, k=65)
+
+
+def test_knn_wrapper_validates_inputs(cuda):
+    x = torch.rand(256, device=cuda)
+    with pytest.raises(TypeError):
+        knn_brute_kernel(x.double(), x, x, x, k=4)
+    with pytest.raises(ValueError, match="on cpu"):
+        knn_brute_kernel(x, x, x.cpu(), x, k=4)
+    with pytest.raises(ValueError, match="contiguous"):
+        t = torch.rand(512, device=cuda)[::2]
+        knn_brute_kernel(x, x, t, t, k=4)
+    with pytest.raises(ValueError, match="shape"):
+        knn_brute_kernel(x, x[:100], x, x, k=4)
+
+
+def test_aidw_original_on_card(cuda):
+    """The original algorithm reaches the kNN kernel and matches the CPU."""
+    pts = spatial_points(8192, seed=0)
+    qs = spatial_queries(3000, seed=1)
+    cfg = P.AidwConfig(stage2="tiled")
+    knn_brute_kernel.launches = 0
+    got = P.aidw_original(pts, qs, cfg, device=cuda)
+    assert knn_brute_kernel.launches == 1
+    want = P.aidw_original(pts, qs, cfg, device="cpu")
+    assert torch.equal(got.r_obs.cpu(), want.r_obs)
+    torch.testing.assert_close(got.values.cpu(), want.values, rtol=TOL,
+                               atol=TOL)
+
+
+FIELDS = ("values", "alpha", "r_obs", "overflow_mask", "zero_weight_mask")
+
+
+@pytest.mark.parametrize("stage2,fused", [("tiled", True), ("local", True),
+                                          ("naive", False)])
+def test_graph_replay_equals_eager(cuda, stage2, fused):
+    pts = spatial_points(8192, seed=0)
+    qs = spatial_queries(3000, seed=1)
+    sess = InterpolationSession(pts, P.AidwConfig(stage2=stage2, fused=fused),
+                                device=cuda)
+    assert sess.precompile(max_queries=1024) == [64, 128, 256, 512, 1024]
+    assert sess.stats["aot_buckets"] == 5
+    hist = sess.registry.snapshot()["histograms"]["session/compile_s"]
+    assert hist["count"] == 5
+    for n in (1024, 777, 64, 1):     # exact and odd batches in captured buckets
+        replay = sess.query(qs[:n])
+        eager = sess.query(qs[:n], profile=True)
+        for name in FIELDS:
+            assert torch.equal(getattr(replay, name), getattr(eager, name)), \
+                (n, name)
+    # naive Stage 2 is plain torch ops: its graphs hold no hand-written kernel
+    assert bool(sess.graph_launches()) == (stage2 != "naive")
+    misses = sess.stats["bucket_misses"]
+    sess.query(qs[:2000])            # an uncaptured bucket runs eagerly
+    assert sess.stats["bucket_misses"] == misses + 1
+
+
+def test_graph_results_survive_replay_and_update_drops_graphs(cuda):
+    pts = spatial_points(8192, seed=0)
+    qs = spatial_queries(512, seed=1)
+    sess = InterpolationSession(pts, P.AidwConfig(stage2="tiled", fused=True),
+                                device=cuda)
+    sess.precompile(buckets=[512])
+    first = sess.query(qs)
+    kept = first.values.clone()
+    sess.query(qs.copy()[::-1].copy())      # replays into the same buffers
+    assert torch.equal(first.values, kept)
+    assert sess.graph_launches() == {"aidw_tiled_kernel": 2}
+    sess.update(pts[:4000])
+    assert sess.stats["aot_buckets"] == 0 and sess.graph_launches() == {}
+    assert sess.registry.snapshot()["gauges"]["compiled_buckets"] == 0.0
+    want = InterpolationSession(pts[:4000],
+                                P.AidwConfig(stage2="tiled", fused=True),
+                                device=cuda).query(qs)
+    assert torch.equal(sess.query(qs).values, want.values)

@@ -153,14 +153,52 @@ def test_bucket_size_matches_reference():
 
 
 def test_unported_session_features_raise(spatial_data):
+    """mesh= (A10) and delta updates (A7) still raise; precompile (A6) is
+    ported: the reference's ladder, and a ValueError without a size."""
     pts, _ = spatial_data
     with pytest.raises(NotImplementedError, match="A10"):
         TS.InterpolationSession(pts, mesh=object(), device="cpu")
     sess = TS.InterpolationSession(pts[:256], device="cpu")
-    with pytest.raises(NotImplementedError, match="A6"):
-        sess.precompile(max_queries=256)
+    assert sess.precompile(max_queries=256) == [64, 128, 256]
+    with pytest.raises(ValueError, match="max_queries"):
+        sess.precompile()
     with pytest.raises(NotImplementedError, match="A7"):
         sess.update(inserts=pts[:3])
+
+
+@pytest.mark.parametrize("min_bucket,max_queries", [
+    (64, 256), (64, 1), (64, 1000), (1, 70_001), (48, 300), (128, 100)])
+def test_bucket_ladder_matches_reference(spatial_data, min_bucket,
+                                         max_queries):
+    pts, qs = spatial_data
+    tsess = TS.InterpolationSession(pts, min_bucket=min_bucket, device="cpu")
+    jsess = JS.InterpolationSession(pts, min_bucket=min_bucket)
+    assert tsess.bucket_ladder(max_queries) == \
+        jsess.bucket_ladder(max_queries)
+
+
+def test_precompile_bookkeeping_on_cpu(spatial_data):
+    """On the CPU nothing is captured (``aot_buckets`` stays 0, the gauge
+    reads 0), precompiled buckets count as hits, ``buckets=`` entries round
+    to their bucket, ``warm=True`` runs each bucket once, and
+    ``compiler_options`` has no counterpart."""
+    pts, qs = spatial_data
+    sess = TS.InterpolationSession(pts, device="cpu")
+    assert sess.precompile(buckets=[100, 3, 128, 500], warm=True) == \
+        [64, 128, 512]
+    assert sess.stats["aot_buckets"] == 0
+    assert sess.stats["batches"] == 3
+    assert sess.stats["bucket_hits"] == 3 and sess.stats["bucket_misses"] == 0
+    assert sess.registry.snapshot()["gauges"]["compiled_buckets"] == 0.0
+    assert "session/compile_s" not in sess.registry.snapshot()["histograms"]
+    assert sess.graph_launches() == {}
+    for n in (40, 100, 300):
+        sess.query(qs[:n])
+    assert sess.stats["bucket_hits"] == 6 and sess.stats["bucket_misses"] == 0
+    sess.query(np.concatenate([qs, qs]))
+    assert sess.stats["bucket_misses"] == 1
+    with pytest.raises(ValueError, match="compiler_options"):
+        sess.precompile(max_queries=64, compiler_options={})
 
 
 def test_no_cuda_and_no_device_raises(spatial_data, monkeypatch):

@@ -53,3 +53,43 @@ def test_read_trace_counts_kernels_idle_share_and_blocking_calls(tmp_path):
                                     "cudaMemcpyAsync": 1}
     assert out["top_kernels"][0] == {"name": "gather", "count": 2,
                                      "ms": pytest.approx(0.050)}
+
+
+SASS = """
+        Function : _Z7otherPf
+        /*0000*/                   EXIT ;
+        Function : _ZN12_GLOBAL__N_116knn_brute_kernelILi16EEEvPKfS2_S2_S2_Pfiiii
+        /*0000*/                   S2R R0, SR_TID.X ;
+        /*0010*/                   LDS.64 R2, [R9] ;                 /* 0x0 */
+        /*0020*/                   FADD R4, R0, -R2 ;
+        /*0030*/                   FADD R5, R1, -R3 ;
+        /*0040*/                   FMUL R4, R4, R4 ;
+        /*0050*/                   FMUL R5, R5, R5 ;
+        /*0060*/                   FADD R6, R4, R5 ;
+        /*0070*/                   FSETP.GEU.AND P0, PT, R6, R7, PT ;
+        /*0080*/              @!P0 BRA 0xc0 ;
+        /*0090*/                   IADD3 R9, R9, 0x8, RZ ;
+        /*00a0*/               @P1 BRA 0x10 ;
+        /*00b0*/                   EXIT ;
+        /*00c0*/                   FMNMX R8, R6, R10, PT ;
+        /*00d0*/                   FMNMX R7, R6, R10, !PT ;
+        /*00e0*/                   BRA 0x90 ;
+        /*00f0*/               @P2 BRA 0x0 ;
+"""
+
+
+def test_sass_loop_counts_one_iteration_off_the_cold_path():
+    """The innermost loop with FMULs, walked around its insertion block."""
+    spec = importlib.util.spec_from_file_location(
+        "sass_loop", TOOL.parent / "sass_loop.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    out = mod.count(SASS, "knn_brute_kernelILi16", {"FMNMX"})
+    assert out["loop"] == ["0x10", "0xa0"]
+    assert out["iteration_instructions"] == 10
+    assert out["pairs_per_iteration"] == 1
+    assert out["instructions_per_pair"] == 10
+    assert out["iteration_opcodes"]["FADD"] == 3
+    assert "FMNMX" not in out["iteration_opcodes"]
+    with pytest.raises(ValueError, match="no function"):
+        mod.count(SASS, "missing", {"FMNMX"})
