@@ -13,8 +13,12 @@ in the unit square, n queries):
 
 1. global  — ``InterpolationSession`` with ``stage2="tiled"``, fused and
    unfused, m = 262,144 points, batches of 262,144, 70,001 and 1,000
-   queries; the tiled kernel against its twin at the largest batch
-   (values within 2e-5 abs/rel: another summation order; masks equal);
+   queries; the tiled kernel against its twin at the largest batch and at
+   1,024 queries, where the data axis is split (values within 2e-5
+   abs/rel: another summation order; masks equal), and against an f64
+   evaluation of Eq. (1) on a 2,048-query prefix; both shapes timed, with
+   ``splits``, the occupancy the split planner read (and the CPU path's
+   model of it) and ``tools/sass_loop.py``'s count of the hot loop;
 2. local   — ``stage2="local", fused=True`` at m = n = 1,048,576; the local
    kernel against its twin on all queries (at most 1 ulp apart; the line
    says whether they are bitwise equal);
@@ -59,12 +63,15 @@ from pathlib import Path
 
 import numpy as np
 
-sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
 
 GLOBAL_M = 262_144
 GLOBAL_BATCHES = (262_144, 70_001, 1_000)
 LOCAL_N = 1_048_576
-COMPARE_Q = 2_048          # the global twin is also checked on this prefix
+COMPARE_Q = 2_048          # the global twin and f64 are checked on this prefix
+SMALL_Q = 1_024            # the split tiled launch (the smallest bucket)
+F64_BLOCK = 256            # f64 evaluation, queries a block
 STAGE1_Q = 4_096
 FUSED_STAGE2_Q = 4_096     # phase 3's direct fused_stage2 call
 VAL_TOL = 2e-5             # tiled kernel vs twin: another summation order
@@ -86,10 +93,14 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_INSTR_PER_S = 132 * 128 * 1.98e9
 MUFU_PER_S = 132 * 16 * 1.98e9
 # tiled kernel, per (query, point) pair, at the fewest instructions: FADD
-# dx, FADD dy, FMUL + FFMA d2, FMNMX clamp, FMUL by -alpha/2 (the ln -> log2
-# factors folded in), FADD sum_w, FFMA sum_wz; and one lg2, one ex2
+# dx, FADD dy, FMUL + FFMA d2, FMNMX clamp, FMUL by -alpha/2, FADD sum_w,
+# FFMA sum_wz; and one lg2, one ex2 (MUFU).  tools/sass_loop.py counts the
+# built loop (its line in phase 1).
 TILED_FP32_PER_PAIR = 8
 TILED_MUFU_PER_PAIR = 2
+TILED_SASS_ARGS = ("--library", "aidw_kernels",
+                   "--kernel", "aidw_tiled_kernelILi2ELb1E",
+                   "--unit", "MUFU", "--cold", "")
 # kNN kernel, per (query, point) pair on the path without an insertion, at
 # the fewest instructions: 2 FADD dx/dy, 2 FMUL, FADD d2, FSETP, BRA and half
 # an LDS.128 (one load serves two points), each issued at the same 128 a
@@ -189,6 +200,31 @@ def turns_ms(torch, fns: dict, reps: int) -> dict:
                    "ms_max": max(v), "reps": reps} for name, v in ms.items()}
 
 
+def tiled_bound(n: int, m: int) -> tuple[float, dict]:
+    """``(bound ms, its terms)`` of the tiled kernel over n x m pairs."""
+    terms = {"bytes": 1e3 * 4 * (3 * n + 3 * m + 2 * n + 2) / HBM_BYTES_PER_S,
+             "fp32_issue": 1e3 * TILED_FP32_PER_PAIR * n * m
+             / FP32_INSTR_PER_S,
+             "mufu": 1e3 * TILED_MUFU_PER_PAIR * n * m / MUFU_PER_S}
+    return max(terms.values()), terms
+
+
+def f64_err(torch, A, out, qx, qy, alpha, px, py, pz) -> float:
+    """Largest distance of ``out`` from Eq. (1) in f64 (the exp/log weights
+    of the reference kernel) on the queries given, in blocks."""
+    err = 0.0
+    x64, y64, z64 = px.double(), py.double(), pz.double()
+    for i in range(0, qx.shape[0], F64_BLOCK):
+        b = slice(i, i + F64_BLOCK)
+        d2 = ((qx[b, None].double() - x64) ** 2
+              + (qy[b, None].double() - y64) ** 2)
+        w = torch.exp(-0.5 * alpha[b, None].double()
+                      * torch.log(torch.clamp_min(d2, A.EPS_D2)))
+        exact = (w * z64).sum(1) / w.sum(1)
+        err = max(err, float((out[b].double() - exact).abs().max()))
+    return err
+
+
 def results_equal(torch, a, b) -> bool:
     return all(torch.equal(getattr(a, f), getattr(b, f)) for f in FIELDS)
 
@@ -231,6 +267,7 @@ def main() -> int:
     from repro_torch import kernels
     from repro_torch.kernels import build
     from repro_torch.kernels.aidw import ops, ref
+    from repro_torch.kernels.aidw import aidw_kernel as AK
     from repro_torch.kernels.aidw.aidw_kernel import (
         local_interpolate_kernel, local_interpolate_plain,
         tiled_interpolate_kernel, tiled_interpolate_plain)
@@ -279,53 +316,80 @@ def main() -> int:
         args = ops.tiled_inputs(qt, pln.points_xy, pln.values, aux,
                                 tile_q=cfg.tile_q, tile_d=cfg.tile_d)
         qx, qy, aux_p, px, py, pz = args
+        n, m = qx.shape[0], px.shape[0]
+        tiles = dict(tile_q=cfg.tile_q, tile_d=cfg.tile_d)
         kw = dict(fused=fused, **kw_alpha(cfg))
         kern = lambda: tiled_interpolate_kernel(  # noqa: E731
-            qx, qy, aux_p, stats, px, py, pz, tile_q=cfg.tile_q,
-            tile_d=cfg.tile_d, **kw)
+            qx, qy, aux_p, stats, px, py, pz, **tiles, **kw)
         out_k, sw_k = kern()
+        splits = AK.tiled_splits(n, m, fused=fused, device=dev, **tiles)
         head = slice(0, COMPARE_Q)
         out_h, sw_h = tiled_interpolate_plain(
             qx[head], qy[head], aux_p[head], stats, px, py, pz, **kw)
         torch.testing.assert_close(out_k[head], out_h, rtol=VAL_TOL,
                                    atol=VAL_TOL)
         (out_p, sw_p), plain_ms = cuda_ms(
-            torch, lambda: tiled_interpolate_plain(qx, qy, aux_p, stats, px,
-                                                   py, pz, **kw),
+            torch, lambda: tiled_interpolate_plain(
+                qx, qy, aux_p, stats, px, py, pz, splits=splits,
+                tile_d=cfg.tile_d, **kw),
             reps=1, warmup=0)
         torch.testing.assert_close(out_k, out_p, rtol=VAL_TOL, atol=VAL_TOL)
         check(torch.equal(sw_k <= 0, sw_p <= 0), "tiled zero-weight masks")
         err = float((out_k - out_p).abs().max())
         # both f32 sums against an f64 evaluation of the same Eq. (1)
-        f64 = slice(0, 64)
-        a64 = (A.adaptive_alpha(aux_p[f64], stats[0], stats[1],
-                                **kw_alpha(cfg))
-               if fused else aux_p[f64]).double()
-        d2 = (qx[f64, None].double() - px.double()) ** 2 \
-            + (qy[f64, None].double() - py.double()) ** 2
-        w = torch.exp(-0.5 * a64[:, None]
-                      * torch.log(torch.clamp_min(d2, A.EPS_D2)))
-        exact = (w * pz.double()).sum(1) / w.sum(1)
-        f64_err = {"kernel": float((out_k[f64] - exact).abs().max()),
-                   "plain": float((out_p[f64] - exact).abs().max())}
+        a64 = (A.adaptive_alpha(aux_p[head], stats[0], stats[1],
+                                **kw_alpha(cfg)) if fused else aux_p[head])
+        f64 = {name: f64_err(torch, A, o[head], qx[head], qy[head], a64, px,
+                             py, pz) for name, o in (("kernel", out_k),
+                                                     ("plain", out_p))}
         _, ms = cuda_ms(torch, kern, reps=3, warmup=0)
-        n, m = qx.shape[0], px.shape[0]
-        nbytes = 4 * (3 * n + 3 * m + 2 * n + 2)
-        terms = {"bytes": 1e3 * nbytes / HBM_BYTES_PER_S,
-                 "fp32_issue": 1e3 * TILED_FP32_PER_PAIR * n * m
-                 / FP32_INSTR_PER_S,
-                 "mufu": 1e3 * TILED_MUFU_PER_PAIR * n * m / MUFU_PER_S}
-        bound_ms = max(terms.values())
-        tiled["max_abs_err"] = max(tiled["max_abs_err"], err)
+        bound_ms, terms = tiled_bound(n, m)
+
+        # the smallest bucket: the data axis split across CTAs
+        small = slice(0, SMALL_Q)
+        sq = (qx[small], qy[small], aux_p[small])
+        s_splits = AK.tiled_splits(SMALL_Q, m, fused=fused, device=dev,
+                                   **tiles)
+        check(s_splits > 1, f"{SMALL_Q} queries not split")
+        skern = lambda: tiled_interpolate_kernel(  # noqa: E731
+            *sq, stats, px, py, pz, **tiles, **kw)
+        out_s, sw_s = skern()
+        want_s, wsw_s = tiled_interpolate_plain(
+            *sq, stats, px, py, pz, splits=s_splits, tile_d=cfg.tile_d, **kw)
+        torch.testing.assert_close(out_s, want_s, rtol=VAL_TOL, atol=VAL_TOL)
+        check(torch.equal(sw_s <= 0, wsw_s <= 0), "split zero-weight masks")
+        check(torch.equal(out_s, skern()[0]), "split launch not deterministic")
+        _, small_ms = cuda_ms(torch, skern, reps=20, warmup=2)
+        q_ = AK.queries_per_thread(cfg.tile_q)
+        occupancy = {"card": AK.card_ctas_per_sm(
+            torch.cuda.current_device(), q_, cfg.tile_q // q_, cfg.tile_d,
+            fused)[1], "model": AK.reference_ctas_per_sm(
+                q_, cfg.tile_q // q_, cfg.tile_d, fused)}
+        check(occupancy["card"] == occupancy["model"],
+              f"the CPU path's occupancy model is off the card's: {occupancy}")
+
+        tiled["max_abs_err"] = max(tiled["max_abs_err"], err,
+                                   float((out_s - want_s).abs().max()))
         if fused:
             tiled.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms)
         emit({"phase": "global", "fused": fused, "m": GLOBAL_M,
               "batches": rows, "launches": launches,
-              "kernel_n": n, "kernel_m": m, "kernel_ms": ms,
+              "kernel_n": n, "kernel_m": m, "kernel_ms": ms, "splits": splits,
               "plain_ms": plain_ms, "bound_ms": bound_ms,
               "bound_terms_ms": terms,
-              "max_abs_err": err, "f64_max_abs_err_64q": f64_err})
+              "max_abs_err": err, f"f64_max_abs_err_{COMPARE_Q}q": f64,
+              "small": {"n": SMALL_Q, "m": m, "splits": s_splits,
+                        "kernel_ms": small_ms,
+                        "bound_ms": tiled_bound(SMALL_Q, m)[0],
+                        "max_abs_err": float((out_s - want_s).abs().max())},
+              "queries_per_thread": q_, "ctas_per_sm": occupancy})
         del sess, knn, r_obs, alpha, args, out_p, sw_p
+
+    tool = ROOT / "tools" / "sass_loop.py"
+    sass = subprocess.run([sys.executable, str(tool), *TILED_SASS_ARGS],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    emit({"phase": "tiled_sass", **json.loads(sass.strip().splitlines()[-1])})
 
     # -- phase 2: local (exact-k) Stage 2 ----------------------------------
     pts2 = spatial_points(LOCAL_N, seed=0)

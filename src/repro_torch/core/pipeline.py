@@ -56,7 +56,7 @@ class AidwConfig:
     interp_data_block: int = 0     # chunk Stage-2 data axis (0 = whole dataset)
     stage2: Literal["naive", "tiled", "local", "global"] = "naive"
     fused: bool = False            # tiled/local: the fused kernel variant
-    tile_q: int = 256              # queries (threads) per CTA
+    tile_q: int = 256              # queries per CTA
     tile_d: int = 512              # data points per shared-memory tile
     interpret: bool = True         # kept so configs round-trip; unused here
 

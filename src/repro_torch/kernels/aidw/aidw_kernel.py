@@ -15,11 +15,19 @@ Pallas TPU kernels of the same names in the JAX package's
 Layouts are 1-D f32 vectors: queries ``qx/qy/aux`` (n,), data ``px/py/pz``
 (m,), ``stats`` (2,) = (n_points, area) on the same device (read by the
 fused variants only, so dataset churn changes no launch argument).
+
+The tiled kernel splits the data axis across CTAs when the batch alone
+would leave the card idle: :func:`plan_splits` picks the number of chunks
+from the shapes, the card's SM count and the kernel's resident CTAs per SM,
+and the partial sums are added in chunk order by a second small kernel.
+The twin takes the same ``splits`` and adds in the same order; on a CPU
+tensor the wrapper plans for an H100 (:func:`reference_ctas_per_sm`).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import numpy as np
@@ -29,9 +37,24 @@ from repro_torch.core import aidw as A
 
 from .. import build
 
-DEFAULT_TILE_Q = 256   # queries (threads) per CTA
+DEFAULT_TILE_Q = 256   # queries per CTA (tile_q / q threads, q a thread)
 DEFAULT_TILE_D = 512   # data points per shared-memory tile
-MAX_TILE_D = 4096      # 3 * 4096 f32 = 48 KiB, the static shared-memory limit
+MAX_TILE_D = 3072      # 3072 float4 = 48 KiB, the static shared-memory limit
+
+# The split planner, in waves of resident CTAs (SMs x CTAs an SM holds): a
+# split launch aims at two; a launch whose query CTAs fill half of one stays
+# whole, as the 262,144-query batch does on an H100 (1,024 CTAs of 128
+# threads, 0.65 of a wave; PERF.md §6).
+SPLIT_WAVES = 2
+WHOLE_WAVES = 0.5
+
+# The card the CPU path plans for: an H100 SXM's 132 SMs, and the registers
+# a thread of each aidw_tiled_kernel<q, fused> instance takes (ptxas -v,
+# CUDA 12.9, sm_90a), from which :func:`reference_ctas_per_sm` repeats the
+# occupancy API's answer.
+REFERENCE_SMS = 132
+TILED_REGISTERS = {(1, False): 48, (2, False): 40, (4, False): 48,
+                   (1, True): 48, (2, True): 40, (4, True): 48}
 
 # the plain twin's blocks: it never builds an (n, m) matrix
 _PLAIN_Q_BLOCK = 1024
@@ -74,26 +97,114 @@ def _require_cuda(t: torch.Tensor) -> None:
 # -- global (tiled) Stage 2 ----------------------------------------------------
 
 
+def queries_per_thread(tile_q: int) -> int:
+    """Queries a thread of the tiled kernel holds in registers: 4 or 2 while
+    the CTA keeps four warps (tile_q / q >= 128 threads, a warp for each
+    scheduler of the SM), else 1."""
+    for q in (4, 2):
+        if tile_q % q == 0 and tile_q // q >= 128:
+            return q
+    return 1
+
+
+def plan_splits(n: int, m: int, tile_q: int, tile_d: int, *, sms: int,
+                ctas_per_sm: int) -> int:
+    """Data-axis chunks of a tiled launch over ``n`` queries and ``m``
+    points on a card of ``sms`` SMs that holds ``ctas_per_sm`` of its CTAs.
+
+    1 when the ``n / tile_q`` query CTAs alone fill :data:`WHOLE_WAVES`
+    of a wave (``sms * ctas_per_sm`` resident CTAs); otherwise enough chunks
+    to fill :data:`SPLIT_WAVES` waves, and never more than the
+    ``m / tile_d`` data tiles.  Non-increasing in ``n``."""
+    q_ctas = -(-n // tile_q)
+    tiles = m // tile_d
+    wave = sms * ctas_per_sm
+    if q_ctas == 0 or tiles <= 1 or q_ctas >= WHOLE_WAVES * wave:
+        return 1
+    return min(tiles, -(-SPLIT_WAVES * wave // q_ctas))
+
+
+def reference_ctas_per_sm(q: int, threads: int, tile_d: int,
+                          fused: bool) -> int:
+    """Resident CTAs of the tiled kernel an H100 SM holds, as
+    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` gives it: the least of
+    32 CTAs, 64 warps, the registers (65,536, in 256-register units a warp,
+    a quarter on each scheduler) and 228 KiB of shared memory (1 KiB more a
+    CTA)."""
+    warps = -(-threads // 32)
+    regs_warp = -(-TILED_REGISTERS[q, bool(fused)] * 32 // 256) * 256
+    by_regs = 4 * (16_384 // regs_warp) // warps
+    by_smem = 233_472 // (16 * tile_d + 1024)
+    return max(1, min(32, 64 // warps, by_regs, by_smem))
+
+
+@functools.cache
+def card_ctas_per_sm(index: int, q: int, threads: int, tile_d: int,
+                     fused: bool) -> tuple[int, int]:
+    """``(SM count, resident CTAs per SM)`` of card ``index`` for the tiled
+    kernel instance, from ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``."""
+    ctas = ctypes.c_int(0)
+    with torch.cuda.device(index):
+        err = build.library("aidw_kernels").aidw_tiled_ctas_per_sm(
+            q, threads, tile_d, int(fused), ctypes.addressof(ctas))
+    if err:
+        raise RuntimeError(f"aidw_tiled_ctas_per_sm failed: CUDA error {err}")
+    return (torch.cuda.get_device_properties(index).multi_processor_count,
+            ctas.value)
+
+
+def tiled_splits(n: int, m: int, *, tile_q: int = DEFAULT_TILE_Q,
+                 tile_d: int = DEFAULT_TILE_D, fused: bool = False,
+                 device=None) -> int:
+    """The ``splits`` the tiled wrapper launches with on ``device``: the
+    card's own SM count and occupancy on CUDA, an H100's on the CPU (so the
+    twin adds in the order that card would)."""
+    device = torch.device("cpu" if device is None else device)
+    q = queries_per_thread(tile_q)
+    if device.type == "cuda":
+        index = device.index if device.index is not None \
+            else torch.cuda.current_device()
+        sms, ctas = card_ctas_per_sm(index, q, tile_q // q, tile_d,
+                                     bool(fused))
+    else:
+        sms = REFERENCE_SMS
+        ctas = reference_ctas_per_sm(q, tile_q // q, tile_d, fused)
+    return plan_splits(n, m, tile_q, tile_d, sms=sms, ctas_per_sm=ctas)
+
+
 def tiled_interpolate_plain(qx, qy, aux, stats, px, py, pz, *, fused=False,
                             alphas=A.DEFAULT_ALPHAS, r_min=A.DEFAULT_R_MIN,
-                            r_max=A.DEFAULT_R_MAX):
-    """Twin of the tiled kernel: running (sum_w, sum_wz) per query across
-    data blocks, exp/log weights, ``max(sum_w, 1e-30)`` finish.  Returns
-    ``(values (n,), sum_w (n,))``."""
+                            r_max=A.DEFAULT_R_MAX, splits: int = 1,
+                            tile_d: int = DEFAULT_TILE_D):
+    """Twin of the tiled kernel, exp/log weights, ``max(sum_w, 1e-30)``
+    finish.  Returns ``(values (n,), sum_w (n,))``.
+
+    The data axis is cut as the kernel cuts it into ``splits`` chunks of
+    whole ``tile_d`` tiles; per query, each chunk's (sum_w, sum_wz) is a
+    running sum over its data blocks, and the chunks' sums are added in
+    chunk order.  ``splits=1`` is one running sum over all blocks."""
     alpha = A.adaptive_alpha(aux, stats[0], stats[1], alphas=alphas,
                              r_min=r_min, r_max=r_max) if fused else aux
     nha = -0.5 * alpha
+    m = px.shape[0]
+    tiles = -(-m // tile_d)
+    cuts = [min(m, tile_d * (s * tiles // splits)) for s in range(splits + 1)]
     sw = torch.zeros_like(qx)
     swz = torch.zeros_like(qx)
     for i in range(0, qx.shape[0], _PLAIN_Q_BLOCK):
         q = slice(i, i + _PLAIN_Q_BLOCK)
         x, y, h = qx[q, None], qy[q, None], nha[q, None]
-        for j in range(0, px.shape[0], _PLAIN_D_BLOCK):
-            d = slice(j, j + _PLAIN_D_BLOCK)
-            d2 = (x - px[None, d]) ** 2 + (y - py[None, d]) ** 2
-            w = torch.exp(h * torch.log(torch.clamp_min(d2, A.EPS_D2)))
-            sw[q] += w.sum(1)
-            swz[q] += (w * pz[None, d]).sum(1)
+        for a, b in zip(cuts[:-1], cuts[1:]):
+            cw = torch.zeros_like(x[:, 0])
+            cwz = torch.zeros_like(x[:, 0])
+            for j in range(a, b, _PLAIN_D_BLOCK):
+                d = slice(j, min(j + _PLAIN_D_BLOCK, b))
+                d2 = (x - px[None, d]) ** 2 + (y - py[None, d]) ** 2
+                w = torch.exp(h * torch.log(torch.clamp_min(d2, A.EPS_D2)))
+                cw += w.sum(1)
+                cwz += (w * pz[None, d]).sum(1)
+            sw[q] += cw
+            swz[q] += cwz
     return swz / torch.clamp_min(sw, 1e-30), sw
 
 
@@ -103,18 +214,23 @@ def tiled_interpolate_kernel(qx, qy, aux, stats, px, py, pz, *,
                              alphas=A.DEFAULT_ALPHAS,
                              r_min: float = A.DEFAULT_R_MIN,
                              r_max: float = A.DEFAULT_R_MAX):
-    """Global Eq. (1) through ``aidw_tiled_kernel<fused>``.
+    """Global Eq. (1) through ``aidw_tiled_kernel<q, fused>``, q =
+    :func:`queries_per_thread` (tile_q), split along the data axis as
+    :func:`tiled_splits` plans it (then a second small kernel adds the
+    chunks' partial sums in order; one launch count either way).
 
     ``n % tile_q == 0`` and ``m % tile_d == 0`` (the ops layer pads).
     Returns ``(values (n,), sum_w (n,))``; ``aux`` is alpha, or r_obs when
     ``fused``."""
+    n, m = qx.shape[0], px.shape[0]
     if qx.device.type == "cpu":
-        return tiled_interpolate_plain(qx, qy, aux, stats, px, py, pz,
-                                       fused=fused, alphas=alphas,
-                                       r_min=r_min, r_max=r_max)
+        return tiled_interpolate_plain(
+            qx, qy, aux, stats, px, py, pz, fused=fused, alphas=alphas,
+            r_min=r_min, r_max=r_max, tile_d=tile_d,
+            splits=tiled_splits(n, m, tile_q=tile_q, tile_d=tile_d,
+                                fused=fused))
     _require_cuda(qx)
     dev, f32 = qx.device, torch.float32
-    n, m = qx.shape[0], px.shape[0]
     for name, t in (("qx", qx), ("qy", qy), ("aux", aux)):
         _check(name, t, f32, (n,), dev)
     for name, t in (("px", px), ("py", py), ("pz", pz)):
@@ -122,7 +238,8 @@ def tiled_interpolate_kernel(qx, qy, aux, stats, px, py, pz, *,
     _check("stats", stats, f32, (2,), dev)
     if not 1 <= tile_q <= 1024 or not 1 <= tile_d <= MAX_TILE_D:
         raise ValueError(f"tile_q must be in [1, 1024] and tile_d in "
-                         f"[1, {MAX_TILE_D}], got {tile_q}, {tile_d}")
+                         f"[1, {MAX_TILE_D}] (float4 points in 48 KiB of "
+                         f"shared memory), got {tile_q}, {tile_d}")
     if n % tile_q or m % tile_d:
         raise ValueError(f"n={n} and m={m} must be multiples of tile_q="
                          f"{tile_q} and tile_d={tile_d}")
@@ -130,13 +247,19 @@ def tiled_interpolate_kernel(qx, qy, aux, stats, px, py, pz, *,
     sumw = torch.empty_like(qx)
     if n == 0:
         return out, sumw
+    q = queries_per_thread(tile_q)
+    splits = tiled_splits(n, m, tile_q=tile_q, tile_d=tile_d, fused=fused,
+                          device=dev)
+    part = torch.empty((2, splits, n), dtype=f32, device=dev) \
+        if splits > 1 else None
     arr, rmin, rmax, cos_scale = _alpha_args(alphas, r_min, r_max)
     with torch.cuda.device(dev):
         err = build.library("aidw_kernels").aidw_tiled(
             qx.data_ptr(), qy.data_ptr(), aux.data_ptr(), stats.data_ptr(),
             px.data_ptr(), py.data_ptr(), pz.data_ptr(), out.data_ptr(),
-            sumw.data_ptr(), n, m, tile_q, tile_d, int(fused),
-            ctypes.addressof(arr), rmin, rmax, cos_scale,
+            sumw.data_ptr(), 0 if part is None else part.data_ptr(), n, m,
+            tile_q, tile_d, q, splits, int(fused), ctypes.addressof(arr),
+            rmin, rmax, cos_scale,
             torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"aidw_tiled launch failed: CUDA error {err}")

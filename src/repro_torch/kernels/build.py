@@ -35,10 +35,12 @@ _F = ctypes.c_float
 # returns cudaGetLastError() as an int
 LIBRARIES = {
     "aidw_kernels": (KERNELS_DIR / "aidw" / "csrc" / "aidw_kernels.cu", {
-        # aidw_tiled(qx, qy, aux, stats, px, py, pz, out, sumw, n, m, tile_q,
-        #            tile_d, fused, alphas[5] (host), r_min, r_max,
-        #            cos_scale, stream)
-        "aidw_tiled": [_P] * 9 + [_I] * 5 + [_P, _F, _F, _F, _P],
+        # aidw_tiled(qx, qy, aux, stats, px, py, pz, out, sumw, part, n, m,
+        #            tile_q, tile_d, q, splits, fused, alphas[5] (host),
+        #            r_min, r_max, cos_scale, stream)
+        "aidw_tiled": [_P] * 10 + [_I] * 7 + [_P, _F, _F, _F, _P],
+        # aidw_tiled_ctas_per_sm(q, threads, tile_d, fused, ctas (host))
+        "aidw_tiled_ctas_per_sm": [_I] * 4 + [_P],
         # aidw_local(d2, idx, aux, stats, pz, out, sumw, n, k, tile_q, fused,
         #            alphas[5] (host), r_min, r_max, cos_scale, stream)
         "aidw_local": [_P] * 7 + [_I] * 4 + [_P, _F, _F, _F, _P],

@@ -22,7 +22,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.core import aidw as A, knn as K, pipeline as P  # noqa: E402
 from repro_torch.core.session import InterpolationSession  # noqa: E402
 from repro_torch.data.pipeline import spatial_points, spatial_queries  # noqa: E402
-from repro_torch.kernels.aidw import ops  # noqa: E402
+from repro_torch.kernels.aidw import aidw_kernel as AK, ops  # noqa: E402
 from repro_torch.kernels.aidw.aidw_kernel import (  # noqa: E402
     local_interpolate_kernel, local_interpolate_plain, reset_launches,
     tiled_interpolate_kernel, tiled_interpolate_plain)
@@ -67,6 +67,78 @@ def test_tiled_kernel_matches_twin(cuda, n, m, tq, td, fused):
                                         fused=fused)
     torch.testing.assert_close(out, want, rtol=TOL, atol=TOL)
     assert torch.equal(sw <= 0, wsw <= 0)
+
+
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("m", [65_536, 262_144])
+@pytest.mark.parametrize("n", [1, 1_000, 1_024])
+def test_tiled_kernel_split_matches_twin(cuda, n, m, fused):
+    """Small batches split the data axis; the twin adds in the same order."""
+    q, p, z, a = _data(n, m, cuda, seed=21)
+    aux = a * 0.01 if fused else a
+    stats = ops.stats_tensor(m, 1.0, cuda)
+    args = ops.tiled_inputs(q, p, z, aux, tile_q=256, tile_d=512)
+    splits = AK.tiled_splits(args[0].shape[0], args[3].shape[0], fused=fused,
+                             device=cuda)
+    assert splits > 1
+    reset_launches()
+    out, sw = tiled_interpolate_kernel(*args[:3], stats, *args[3:],
+                                       fused=fused)
+    again, _ = tiled_interpolate_kernel(*args[:3], stats, *args[3:],
+                                        fused=fused)
+    torch.cuda.synchronize()
+    assert tiled_interpolate_kernel.launches == 2
+    assert torch.equal(out, again)          # no atomics: the same bits
+    want, wsw = tiled_interpolate_plain(*args[:3], stats, *args[3:],
+                                        fused=fused, splits=splits)
+    torch.testing.assert_close(out, want, rtol=TOL, atol=TOL)
+    assert torch.equal(sw <= 0, wsw <= 0)
+
+
+@pytest.mark.parametrize("n", [2, 1_024])
+def test_tiled_kernel_keeps_subnormal_weights(cuda, n):
+    """A query at (1e10, 0) weighs the unit-square points ~1e-40 at alpha 4:
+    subnormal, but not flushed (ex2 without .ftz), so sum_w > 0 and the
+    masks equal the twin's, split or not."""
+    q = torch.rand(n, 2, device=cuda)
+    q[0] = torch.tensor([1e10, 0.0])
+    p = torch.rand(65_536, 2, device=cuda)
+    z = torch.sin(torch.rand(65_536, device=cuda) * 7)
+    args = ops.tiled_inputs(q, p, z, 4.0, tile_q=256, tile_d=512)
+    stats = ops.stats_tensor(1.0, 1.0, cuda)
+    out, sw = tiled_interpolate_kernel(*args[:3], stats, *args[3:])
+    splits = AK.tiled_splits(args[0].shape[0], 65_536, device=cuda)
+    want, wsw = tiled_interpolate_plain(*args[:3], stats, *args[3:],
+                                        splits=splits)
+    w_max = float(torch.exp(-2.0 * torch.log(
+        ((q[0, 0] - p[:, 0]) ** 2 + p[:, 1] ** 2).min())))
+    assert 0.0 < w_max < torch.finfo(torch.float32).tiny
+    assert float(sw[0]) > 0.0 and float(wsw[0]) > 0.0
+    assert torch.equal(sw <= 0, wsw <= 0)
+    torch.testing.assert_close(out, want, rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("n,tq,real_tiles", [(1_024, 256, 1),
+                                             (16_896, 8, 8)])
+def test_tiled_kernel_pad_tiles_weigh_nothing(cuda, n, tq, real_tiles):
+    """Whole tiles of PAD_COORD points leave sum_w and the values bitwise as
+    they are without them: one real tile under a split launch, eight under
+    one that stays whole."""
+    td = 512
+    q, p, z, a = _data(n, real_tiles * td, cuda, seed=22)
+    stats = ops.stats_tensor(1.0, 1.0, cuda)
+    args = ops.tiled_inputs(q, p, z, a, tile_q=tq, tile_d=td)
+    pad = list(args)
+    for k, v in ((3, ops.PAD_COORD), (4, ops.PAD_COORD), (5, 0.0)):
+        pad[k] = torch.cat([args[k], torch.full((4 * td,), v, device=cuda)])
+    plans = [AK.tiled_splits(n, t[3].shape[0], tile_q=tq, tile_d=td,
+                             device=cuda) for t in (args, pad)]
+    assert plans[1] > 1 if real_tiles == 1 else plans == [1, 1]
+    out, sw = tiled_interpolate_kernel(*args[:3], stats, *args[3:],
+                                       tile_q=tq, tile_d=td)
+    pout, psw = tiled_interpolate_kernel(*pad[:3], stats, *pad[3:],
+                                         tile_q=tq, tile_d=td)
+    assert torch.equal(sw, psw) and torch.equal(out, pout)
 
 
 @pytest.mark.parametrize("fused", [False, True])
@@ -215,6 +287,27 @@ def test_graph_replay_equals_eager(cuda, stage2, fused):
     misses = sess.stats["bucket_misses"]
     sess.query(qs[:2000])            # an uncaptured bucket runs eagerly
     assert sess.stats["bucket_misses"] == misses + 1
+
+
+@pytest.mark.parametrize("n_points", [8_192, 500])
+def test_graph_replay_of_split_and_whole_buckets(cuda, n_points):
+    """Bucket 1,024 over 8,192 points splits the data axis (16 tiles); over
+    500 points (one tile) it stays whole.  Replays equal eager bitwise."""
+    pts = spatial_points(n_points, seed=0)
+    qs = spatial_queries(1_024, seed=1)
+    sess = InterpolationSession(pts, P.AidwConfig(stage2="tiled", fused=True),
+                                device=cuda)
+    m = -(-sess.plan.points_xy.shape[0] // 512) * 512
+    splits = AK.tiled_splits(1_024, m, fused=True, device=cuda)
+    assert (splits > 1) == (n_points > 512)
+    sess.precompile(buckets=[1_024])
+    for n in (1_024, 999):
+        replay = sess.query(qs[:n])
+        eager = sess.query(qs[:n], profile=True)
+        for name in FIELDS:
+            assert torch.equal(getattr(replay, name), getattr(eager, name)), \
+                (n, name)
+    assert sess.graph_launches() == {"aidw_tiled_kernel": 2}
 
 
 def test_graph_results_survive_replay_and_update_drops_graphs(cuda):

@@ -93,3 +93,14 @@ def test_sass_loop_counts_one_iteration_off_the_cold_path():
     assert "FMNMX" not in out["iteration_opcodes"]
     with pytest.raises(ValueError, match="no function"):
         mod.count(SASS, "missing", {"FMNMX"})
+
+
+def test_tiled_sweep_combos_resolve_plan_and_drop_impossible_splits():
+    spec = importlib.util.spec_from_file_location(
+        "tiled_sweep", TOOL.parent / "tiled_sweep.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    got = mod.combos([2, 4], ["plan", "1", "2", "600"], tiles=512, planned=1)
+    assert got == [(2, 1), (2, 2), (4, 1), (4, 2)]
+    assert mod.combos([2], ["plan", "8"], tiles=4, planned=4) == [(2, 4)]
+    assert mod.combos([1], ["plan"], tiles=0, planned=1) == [(1, 1)]

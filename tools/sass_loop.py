@@ -1,22 +1,27 @@
 #!/usr/bin/env python3
 """Count the instructions one iteration of a kernel's hot loop issues.
 
-    python3 tools/sass_loop.py [--lib LIB.so] [--kernel NAME] [--cold OP]
+    python3 tools/sass_loop.py [--lib LIB.so | --library NAME]
+                               [--kernel NAME] [--cold OP] [--unit OP]
+                               [--per-pair N]
 
 Builds the port's CUDA libraries if needed (``repro_torch.kernels.build``),
-runs ``cuobjdump -sass`` on ``--lib`` (default: the kNN library) and takes
-the first function whose mangled name contains ``--kernel`` (default
-``knn_brute_kernelILi16``, the k <= 16 instance).  A branch back to an
-earlier address closes a loop; the hot loop is the innermost one (it holds
-no other loop) with the most ``FMUL`` instructions.  The script walks
-one iteration from the loop's head: at a conditional branch it avoids the
-side whose block holds a ``--cold`` opcode (default ``FMNMX``: the kNN
-kernel's insertion, taken ~k ln(m/k) times a query) and otherwise falls
-through.  Prints one JSON line: the loop's span, the instructions of one
-iteration by opcode, the pairs it covers (two ``FMUL`` a pair) and the
-instructions a pair, the number ``chip_smoke.py``'s kNN bound uses.
-Needs ``cuobjdump`` (the CUDA toolkit's ``bin``), so it runs where the
-kernels build.
+runs ``cuobjdump -sass`` on ``--lib`` (default: the built library
+``--library``, ``knn_kernels``) and takes the first function whose mangled
+name contains ``--kernel`` (default ``knn_brute_kernelILi16``, the k <= 16
+instance).  A branch back to an earlier address closes a loop; the hot loop
+is the innermost one (it holds no other loop) with the most ``--unit``
+instructions (default ``FMUL``).  The script walks one iteration from the
+loop's head: at a conditional branch it avoids the side whose block holds a
+``--cold`` opcode (default ``FMNMX``: the kNN kernel's insertion, taken
+~k ln(m/k) times a query) and otherwise falls through.  Prints one JSON
+line: the loop's span, the instructions of one iteration by opcode, the
+pairs it covers (``--per-pair`` units a pair, default 2) and the
+instructions a pair.  The kNN kernel's count is the number
+``chip_smoke.py``'s kNN bound cites; the tiled kernel's hot loop is counted
+with ``--library aidw_kernels --kernel aidw_tiled_kernelILi2ELb1E --unit
+MUFU --cold ''`` (two MUFU ops, lg2 and ex2, a pair).  Needs ``cuobjdump``
+(the CUDA toolkit's ``bin``), so it runs where the kernels build.
 """
 
 from __future__ import annotations
@@ -138,10 +143,16 @@ def count(sass: str, kernel: str, cold: set, unit: str = "FMUL",
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--lib", help="shared library (default: the kNN one)")
+    ap.add_argument("--lib", help="shared library (default: --library's)")
+    ap.add_argument("--library", default="knn_kernels",
+                    help="name of a built library of the port")
     ap.add_argument("--kernel", default="knn_brute_kernelILi16")
     ap.add_argument("--cold", default="FMNMX",
                     help="comma-separated opcodes of rarely taken blocks")
+    ap.add_argument("--unit", default="FMUL",
+                    help="opcode that marks the hot loop and counts pairs")
+    ap.add_argument("--per-pair", type=int, default=2,
+                    help="--unit instructions a (query, point) pair")
     args = ap.parse_args()
     if args.lib:
         lib = Path(args.lib)
@@ -150,7 +161,7 @@ def main() -> int:
         from repro_torch.kernels import build
 
         build.build_all()
-        lib = build.library_path("knn_kernels")
+        lib = build.library_path(args.library)
     tool = shutil.which("cuobjdump")
     if tool is None:
         from torch.utils.cpp_extension import CUDA_HOME
@@ -160,7 +171,8 @@ def main() -> int:
     sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
                           text=True, check=True).stdout
     print(json.dumps({"library": lib.name,
-                      **count(sass, args.kernel, set(args.cold.split(",")))}),
+                      **count(sass, args.kernel, set(args.cold.split(",")),
+                              args.unit, args.per_pair)}),
           flush=True)
     return 0
 
